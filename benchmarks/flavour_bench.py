@@ -1,15 +1,12 @@
 """Per-flavour headline timings: one JSON line per pipeline flavour.
 
 Measures the full detect+describe+match pair program (the bench.py
-protocol: in-graph lax.scan differencing on the stock 960x1280 pair) for
+protocol: host clock around block_until_ready after warm-up, on the stock
+960x1280 pair or its synthetic stand-in, io.stock_pair) for
 
   * float PM_G2 (the headline default)
-  * float PM_G1 / WEICKERT / CHARBONNIER (the r2 verdict asked for one
-    measured number per conductivity now that all four run fused)
-  * fixed (fastakaze, default approximate bf16 descriptor sampling)
-  * fixed exact (bit-faithful f32 descriptor sampling kernel)
-
-Run on the real TPU chip; results are recorded in BENCH_NOTES.md.
+  * float PM_G1 / WEICKERT / CHARBONNIER
+  * fixed (fastakaze, 16.16 integers)
 """
 
 from __future__ import annotations
@@ -29,20 +26,19 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--flavours", default="pm_g2,pm_g1,weickert,"
-                    "charbonnier,fixed,fixed_exact")
+                    "charbonnier,fixed")
     args = ap.parse_args()
 
-    from akaze_tpu.profiling import enable_compile_cache, scan_time
+    from akaze_jax.profiling import enable_compile_cache, time_call
     enable_compile_cache()
     import jax.numpy as jnp
-    from akaze_tpu import AkazeConfig, Diffusivity
-    from akaze_tpu.io import load_pgm
-    from akaze_tpu.match import match
-    from akaze_tpu.pipeline import detect_and_compute_pair
-    from akaze_tpu.plan import build_plan
+    from akaze_jax import AkazeConfig, Diffusivity
+    from akaze_jax.io import stock_pair
+    from akaze_jax.match import match
+    from akaze_jax.pipeline import detect_and_compute_pair
+    from akaze_jax.plan import build_plan
 
-    left = load_pgm("/root/reference/data/left.pgm")
-    right = load_pgm("/root/reference/data/right.pgm")
+    left, right, _ = stock_pair()
     h, w = left.shape
 
     flavours = {
@@ -51,7 +47,6 @@ def main():
         "weickert": dict(diffusivity=Diffusivity.WEICKERT),
         "charbonnier": dict(diffusivity=Diffusivity.CHARBONNIER),
         "fixed": dict(fixed=True),
-        "fixed_exact": dict(fixed=True, fixed_exact_sampling=True),
     }
 
     for name in args.flavours.split(","):
@@ -68,12 +63,10 @@ def main():
 
         def run_pair(ia, ib):
             f1, f2 = detect_and_compute_pair(ia, ib, plan, fixed)
-            m = match(f1.words, f1.valid, f2.words, f2.valid, f2.x, f2.y,
-                      cfg.max_dist)
-            return m.distance[0]
+            return match(f1.words, f1.valid, f2.words, f2.valid, f2.x,
+                         f2.y, cfg.max_dist)
 
-        ms = scan_time(run_pair, a, b, n1=2,
-                       n2=2 + max(args.iters, 1)) * 1000
+        ms = time_call(run_pair, a, b, iters=max(args.iters, 1)) * 1000
         print(json.dumps({"flavour": name.strip(),
                           "pair_ms": round(ms, 3)}), flush=True)
 

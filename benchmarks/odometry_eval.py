@@ -25,7 +25,7 @@ import sys
 
 import numpy as np
 
-# fallback when akaze_tpu is not pip-installed: add the repo root
+# fallback when akaze_jax is not pip-installed: add the repo root
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -33,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 def simulate(rng, n_frames: int, n_pts: int = 400):
     """Ground-truth trajectory + landmark projections."""
     import jax.numpy as jnp
-    from akaze_tpu.geometry import se3_exp, se3_inverse, se3_compose
+    from akaze_jax.geometry import se3_exp, se3_inverse, se3_compose
 
     X = rng.uniform([-6, -4, 8], [6, 4, 24], (n_pts, 3)).astype(np.float64)
     Rs, ts = [], []
@@ -55,7 +55,7 @@ def simulate(rng, n_frames: int, n_pts: int = 400):
 
 
 def project_frame(X, R, t, words, intr, n_pad, noise, rng):
-    from akaze_tpu.pipeline import Features
+    from akaze_jax.pipeline import Features
     import jax.numpy as jnp
     fx, fy, cx, cy = intr
     Xc = X @ R.T + t
@@ -102,9 +102,9 @@ def run_kitti(kitti_dir, max_frames):
     Runs the actual AKAZE VisualOdometry over the frames and scores ATE
     RMSE against the ground-truth trajectory.
     """
-    from akaze_tpu import AkazeConfig
-    from akaze_tpu.io import FrameSequence, load_kitti_poses, ate_rmse
-    from akaze_tpu.slam.odometry import Intrinsics, VisualOdometry
+    from akaze_jax import AkazeConfig
+    from akaze_jax.io import FrameSequence, load_kitti_poses, ate_rmse
+    from akaze_jax.slam.odometry import Intrinsics, VisualOdometry
 
     seq = FrameSequence(os.path.join(kitti_dir, "image_0"))
     R_gt, t_gt = load_kitti_poses(os.path.join(kitti_dir, "poses.txt"))
@@ -147,9 +147,9 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from akaze_tpu.io import ate_rmse
-    from akaze_tpu.slam.odometry import Intrinsics, _two_view
-    from akaze_tpu.slam import PoseGraph, optimize_pose_graph
+    from akaze_jax.io import ate_rmse
+    from akaze_jax.slam.odometry import Intrinsics, _two_view
+    from akaze_jax.slam import PoseGraph, optimize_pose_graph
 
     rng = np.random.default_rng(7)
     intr = (600.0, 600.0, 320.0, 240.0)

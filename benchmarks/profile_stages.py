@@ -1,144 +1,110 @@
-"""Per-stage timing of the AKAZE pipeline on the current backend.
+"""Per-stage device times of the AKAZE pipeline on one GPU.
 
-Uses the scan-differencing protocol from prof_utils (honest device time,
-dispatch overhead cancelled).  Run on the real TPU chip:
+Each stage is jitted alone on inputs precomputed by the earlier stages and
+timed with the host clock around ``block_until_ready`` after warm-up
+(akaze_jax.profiling.time_call).  The scale space is also timed per octave,
+as the difference between plans with k and k - 1 octaves.  Runs on the stock
+pair where ``data/`` holds it, else on the seeded synthetic pair of the same
+shape (io.stock_pair).
 
-    python benchmarks/profile_stages.py
+    python benchmarks/profile_stages.py [--fixed] [--iters N]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import subprocess
 import sys
 
 import numpy as np
 
-# fallback when akaze_tpu is not pip-installed: repo root + this dir
+# fallback when akaze_jax is not pip-installed: the repo root
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import jax
-import jax.numpy as jnp
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
-from akaze_tpu import AkazeConfig
-from akaze_tpu.io import load_pgm
-from akaze_tpu.plan import build_plan
-from akaze_tpu.scale_space import build_scale_space
-from akaze_tpu.detect import (build_extrema_maps, nms, select_keypoints,
-                              flatten_pyramid, refine_keypoints,
-                              build_padded_pyramid, detect_keypoints)
-from akaze_tpu.descriptor import (WSIZE, extract_windows, compute_orientation,
-                                  compute_descriptors)
-from akaze_tpu.match import match
-from akaze_tpu.pipeline import detect_and_compute
-from prof_utils import report
-from akaze_tpu.profiling import enable_compile_cache
-
-enable_compile_cache()
+from akaze_jax import AkazeConfig  # noqa: E402
+from akaze_jax.descriptor import (compute_descriptors,  # noqa: E402
+                                  compute_orientation)
+from akaze_jax.detect import detect_keypoints, flatten_pyramid  # noqa: E402
+from akaze_jax.io import stock_pair  # noqa: E402
+from akaze_jax.match import match  # noqa: E402
+from akaze_jax.pipeline import detect_and_compute_pair  # noqa: E402
+from akaze_jax.plan import build_plan  # noqa: E402
+from akaze_jax.profiling import enable_compile_cache, time_call  # noqa
+from akaze_jax.scale_space import build_scale_space  # noqa: E402
 
 
 def main():
-    print(f"backend: {jax.default_backend()}, devices: {jax.devices()}")
-    left = load_pgm("/root/reference/data/left.pgm")
-    img = jnp.asarray(left.astype(np.float32) / 255.0)
-    h, w = img.shape
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fixed", action="store_true")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args()
+    if jax.devices()[0].platform != "gpu":
+        sys.exit("profile_stages.py times the GPU; no GPU found")
+    enable_compile_cache()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    left, right, source = stock_pair()
+    fixed = args.fixed
+    conv = ((lambda a: jnp.asarray(a.astype(np.int32))) if fixed
+            else (lambda a: jnp.asarray(a.astype(np.float32) / 255.0)))
+    img, img_b = conv(left), conv(right)
+    h, w = left.shape
     cfg = AkazeConfig(max_pts=10000)
     plan = build_plan(h, w, cfg)
-    print(f"image {h}x{w}, octaves={len(plan.octaves)}")
+    print(f"device: {jax.devices()[0].device_kind} | {card} | pair: "
+          f"{source} {h}x{w} | fixed={fixed} | octaves={len(plan.octaves)}")
 
-    # --- stage 1: scale space ---
-    def ss(im):
-        octs, kc = build_scale_space(im, plan)
-        return sum(jnp.sum(o.det[:, ::64, ::64]) for o in octs) + kc
+    def t(name, fn, *a):
+        ms = time_call(fn, *a, iters=args.iters) * 1000
+        print(f"{name:<26s} {ms:9.3f} ms   [{card}]", flush=True)
+        return ms
 
-    report("scale_space          ", ss, img)
+    # scale space, whole and per octave (difference of k-octave plans)
+    prev = 0.0
+    for k in range(1, len(plan.octaves) + 1):
+        pk = build_plan(h, w, AkazeConfig(max_pts=10000, noctaves=k))
+        ms = time_call(lambda im, pk=pk: build_scale_space(im, pk, fixed),
+                       img, iters=args.iters) * 1000
+        print(f"scale_space octave {k - 1:<7d} {ms - prev:9.3f} ms   "
+              f"(cumulative {ms:.3f})   [{card}]", flush=True)
+        prev = ms
+    octaves, _ = jax.jit(lambda im: build_scale_space(im, plan, fixed))(img)
+    t("detect (extrema..refine)",
+      lambda o: detect_keypoints(o, plan, fixed, buckets=True), octaves)
+    kps = jax.jit(lambda o: detect_keypoints(o, plan, fixed, True))(octaves)
+    flat = jax.jit(flatten_pyramid)(octaves)
+    t("orientation", lambda k, f: compute_orientation(k, f, plan, fixed),
+      kps, flat)
+    angle = jax.jit(lambda k, f: compute_orientation(k, f, plan, fixed))(
+        kps, flat)
+    t("descriptors",
+      lambda k, a, f: compute_descriptors(k, a, f, plan, fixed), kps, angle,
+      flat)
+    fa, fb = jax.jit(lambda a, b: detect_and_compute_pair(a, b, plan,
+                                                          fixed))(img, img_b)
+    print(f"live keypoints: {int(fa.count)} / {int(fb.count)}")
+    for route in ("off", "auto"):
+        t(f"match ({'xla' if route == 'off' else 'kernel'})",
+          lambda a, b, route=route: match(a.words, a.valid, b.words, b.valid,
+                                          b.x, b.y, cfg.max_dist, route),
+          fa, fb)
 
-    # precompute inputs for later stages
-    octaves, _ = build_scale_space(img, plan)
-    octaves = jax.tree.map(jax.device_put, octaves)
+    # end to end, both matcher routes, in turns
+    for route in ("off", "auto", "off", "auto"):
+        def pair(a, b, route=route):
+            f1, f2 = detect_and_compute_pair(a, b, plan, fixed)
+            return match(f1.words, f1.valid, f2.words, f2.valid, f2.x,
+                         f2.y, cfg.max_dist, route)
 
-    def extrema(d0, rest):
-        octs = [type(octaves[0])(*[jnp.where(i == 0 and k == 0, v + d0 * 0, v)
-                                   for k, v in enumerate(o)])
-                for i, o in enumerate(rest)]
-        r, s, l = build_extrema_maps(octs, plan)
-        return jnp.sum(r[::64, ::64]) + jnp.sum(s[::64, ::64])
-
-    def extrema_fn(dummy):
-        r, s, l = build_extrema_maps(
-            [o._replace(det=o.det + dummy * 0) for o in octaves], plan)
-        return jnp.sum(r[::64, ::64])
-
-    report("extrema_maps         ", extrema_fn, jnp.float32(0))
-
-    resp, size, layer = jax.jit(
-        lambda: build_extrema_maps(octaves, plan))()
-
-    def nms_fn(r):
-        m = nms(r, size, layer, plan)
-        return jnp.sum(m.astype(jnp.float32)[::16, ::16])
-
-    report("nms                  ", nms_fn, resp)
-
-    mask = jax.jit(lambda: nms(resp, size, layer, plan))()
-
-    def select_fn(r):
-        kps = select_keypoints(mask, r, size, layer, cfg.max_pts)
-        return jnp.sum(kps.x) + kps.count.astype(jnp.float32)
-
-    report("select               ", select_fn, resp)
-
-    kps = jax.jit(lambda: select_keypoints(mask, resp, size, layer,
-                                           cfg.max_pts))()
-    print(f"  count = {int(kps.count)}")
-
-    def refine_fn(r):
-        octs = [o._replace(det=o.det + r[0, 0] * 0) for o in octaves]
-        flat = flatten_pyramid(octs)
-        k2 = refine_keypoints(kps, flat, plan)
-        return jnp.sum(k2.x)
-
-    report("flatten+refine       ", refine_fn, resp)
-
-    pp = jax.jit(lambda: build_padded_pyramid(octaves, WSIZE))()
-
-    def wnd_fn(Lp):
-        w2 = extract_windows(kps, pp._replace(L=Lp), plan)
-        return jnp.sum(w2.L[:, ::32, ::32])
-
-    report("extract_windows      ", wnd_fn, pp.L)
-
-    wnd = jax.jit(lambda: extract_windows(kps, pp, plan))()
-
-    def orient_fn(lx):
-        a = compute_orientation(kps, wnd._replace(lx=lx), plan)
-        return jnp.sum(a)
-
-    report("orientation          ", orient_fn, wnd.lx)
-
-    angle = jax.jit(lambda: compute_orientation(kps, wnd, plan))()
-
-    def desc_fn(L):
-        d = compute_descriptors(kps, angle, wnd._replace(L=L), plan)
-        return jnp.sum(d.words[:, 0].astype(jnp.float32))
-
-    report("descriptors          ", desc_fn, wnd.L)
-
-    feats = jax.jit(lambda im: detect_and_compute(im, plan))(img)
-
-    def match_fn(w1):
-        m = match(w1.astype(jnp.uint32), feats.valid, feats.words,
-                  feats.valid, feats.x, feats.y, cfg.max_dist)
-        return jnp.sum(m.distance)
-
-    report("match (self)         ", match_fn, feats.words)
-
-    def full_fn(im):
-        f = detect_and_compute(im, plan)
-        return jnp.sum(f.x) + jnp.sum(f.words[:, 0].astype(jnp.float32))
-
-    report("FULL detect+describe ", full_fn, img)
+        t(f"FULL pair + match ({'xla' if route == 'off' else 'kernel'})",
+          pair, img, img_b)
 
 
 if __name__ == "__main__":

@@ -3,15 +3,15 @@
 BASELINE.json config 3 calls for viewpoint/blur robustness benchmarking vs
 OpenCV AKAZE.  The Oxford images cannot be fetched in this zero-egress
 environment and cv2 here lacks features2d, so the protocol runs on
-synthetic homography warps of the reference stereo image with exact
-ground-truth correspondence:
+synthetic homography warps of the reference stereo image (or of its seeded
+synthetic stand-in, io.stock_pair) with exact ground-truth correspondence:
 
   repeatability  = |{kp in A : exists kp' in B with ||H kp - kp'|| < eps}|
                    / min(|A in shared region|, |B in shared region|)
   matching score = |correct matches| / min(|A|, |B|)   (match via Hamming,
                    correct when ||H kp - kp'|| < eps)
 
-Run: python benchmarks/repeatability.py  (TPU or CPU)
+Run: python benchmarks/repeatability.py  (GPU or CPU)
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import sys
 
 import numpy as np
 
-# fallback when akaze_tpu is not pip-installed: add the repo root
+# fallback when akaze_jax is not pip-installed: add the repo root
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -115,7 +115,7 @@ def evaluate_pair(det, img_a, H, eps: float = 2.5):
     # mean corner transfer error
     import jax
     import jax.numpy as jnp
-    from akaze_tpu.geometry import ransac_homography
+    from akaze_jax.geometry import ransac_homography
     x1m = jnp.asarray(np.stack([np.asarray(fa.x), np.asarray(fa.y)], -1))
     x2m = jnp.asarray(np.stack([np.asarray(m.match_x),
                                 np.asarray(m.match_y)], -1))
@@ -139,10 +139,10 @@ def evaluate_pair(det, img_a, H, eps: float = 2.5):
 
 
 def main():
-    from akaze_tpu import Akaze, AkazeConfig
-    from akaze_tpu.io import load_pgm
+    from akaze_jax import Akaze, AkazeConfig
+    from akaze_jax.io import stock_pair
 
-    img = load_pgm("/root/reference/data/left.pgm")[::2, ::2]  # 480x640
+    img = stock_pair()[0][::2, ::2]  # 480x640
     h, w = img.shape
     det = Akaze(AkazeConfig(max_pts=4000))
 

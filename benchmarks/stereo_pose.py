@@ -2,7 +2,8 @@
 
 Runs the full front-end on the reference's left/right pair (a wide-baseline
 view pair — median match displacement is ~530 px with rotation, not a
-rectified rig), then estimates the relative camera pose from the AKAZE
+rectified rig; where ``data/`` lacks it, on the seeded synthetic pair of
+the same shape, a pure translation, io.stock_pair), then estimates the relative camera pose from the AKAZE
 matches with batched-hypothesis RANSAC.  Quality metrics: inlier fraction
 of the putative matches and the Sampson-error statistics of the inliers
 under the recovered essential matrix.
@@ -19,7 +20,7 @@ import time
 
 import numpy as np
 
-# fallback when akaze_tpu is not pip-installed: add the repo root
+# fallback when akaze_jax is not pip-installed: add the repo root
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -27,13 +28,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 def main():
     import jax
     import jax.numpy as jnp
-    from akaze_tpu import Akaze, AkazeConfig
-    from akaze_tpu.io import load_pgm
-    from akaze_tpu.geometry import ransac_essential, so3_log
-    from akaze_tpu.geometry.ransac import normalize_points
+    from akaze_jax import Akaze, AkazeConfig
+    from akaze_jax.io import stock_pair
+    from akaze_jax.geometry import ransac_essential, so3_log
+    from akaze_jax.geometry.ransac import normalize_points
 
-    left = load_pgm("/root/reference/data/left.pgm")
-    right = load_pgm("/root/reference/data/right.pgm")
+    left, right, source = stock_pair()
+    print(f"pair: {source}")
     h, w = left.shape
     # nominal intrinsics (no calibration shipped with the pair): f = w,
     # principal point at center — adequate for direction-of-motion recovery
@@ -56,7 +57,7 @@ def main():
     jax.block_until_ready(res.E)
     ransac_s = time.time() - t0
 
-    from akaze_tpu.geometry import sampson_error
+    from akaze_jax.geometry import sampson_error
     R = np.asarray(res.R)
     t = np.asarray(res.t)
     rot_deg = float(np.degrees(np.linalg.norm(

@@ -1,8 +1,8 @@
-// Native host runtime for the TPU-AKAZE framework.
+// Native host runtime for the AKAZE-SLAM framework.
 //
 // The reference implements its host layer in C++ (image IO via OpenCV,
 // main.cpp:149; the FED step planner, fed.cpp:41-148).  This library is the
-// TPU build's native tier: everything that runs on the host CPU around the
+// framework's native tier: everything that runs on the host CPU around the
 // XLA programs — image decoding, a threaded prefetching frame loader, and
 // the FED time-step planner — implemented from the published FED
 // formulation (Grewenig et al., "From box filtering to fast explicit
@@ -157,7 +157,7 @@ int pgm_decode(const char* path, uint8_t* out, int cap) {
 // ---------------------------------------------------------------------------
 //
 // The host-side analogue of a tf.data/grain input pipeline: worker threads
-// decode frames ahead of the consumer so TPU steps never wait on disk.
+// decode frames ahead of the consumer so device steps never wait on disk.
 // Frames are decoded to uint8 and (optionally) converted to float32 [0, 1]
 // with normalisation done on the worker thread.
 

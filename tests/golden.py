@@ -150,3 +150,25 @@ def fed_tau_by_process_time(T, M, tau_max, reordering):
         tau[l] = tauh[((k + 1) * kappa) % prime - 1]
         k += 1
     return tau
+
+
+def match(words1, valid1, words2, valid2, max_dist):
+    """Reference 1-NN acceptance over valid train rows: the first minimum
+    wins, kept only if strictly below the second minimum and max_dist
+    (gHammingMatch / gMatch, akazed.cu:2106, 2207-2231).  Returns
+    (index [N1], distance [N1]) with -1 for rejected queries."""
+    d = hamming(words1, words2).astype(np.float64)
+    d[:, ~np.asarray(valid2, bool)] = np.inf
+    n1 = d.shape[0]
+    index = np.full(n1, -1, np.int32)
+    dist = np.full(n1, -1.0, np.float32)
+    for q in range(n1):
+        if not valid1[q] or not np.isfinite(d[q]).any():
+            continue
+        b = int(np.argmin(d[q]))
+        rest = np.delete(d[q], b)
+        second = rest.min() if rest.size else np.inf
+        if d[q, b] < second and d[q, b] < max_dist:
+            index[q] = b
+            dist[q] = d[q, b]
+    return index, dist

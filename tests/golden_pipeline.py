@@ -8,7 +8,7 @@ test.  Covers the float path exactly and the 16.16 fixed-point path with
 the reference's per-stage ``>> 16`` truncation semantics.
 
 Deliberately dumb-and-direct: per-pixel float32 checks, per-candidate NMS
-loops, per-keypoint sampling loops — no shared code with akaze_tpu beyond
+loops, per-keypoint sampling loops — no shared code with akaze_jax beyond
 the config constants that define the format.
 """
 

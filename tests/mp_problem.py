@@ -6,8 +6,8 @@ import numpy as np
 
 def make_problem(n_cams: int = 5, n_pts: int = 48):
     import jax.numpy as jnp
-    from akaze_tpu.geometry import se3_exp, se3_inverse
-    from akaze_tpu.slam.ba import BAProblem
+    from akaze_jax.geometry import se3_exp, se3_inverse
+    from akaze_jax.slam.ba import BAProblem
 
     rng = np.random.default_rng(1234)
     X = rng.uniform([-2, -2, 6], [2, 2, 12], (n_pts, 3)).astype(np.float32)

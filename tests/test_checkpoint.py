@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from akaze_tpu.slam.checkpoint import (save_checkpoint, load_checkpoint,
+from akaze_jax.slam.checkpoint import (save_checkpoint, load_checkpoint,
                                        latest_step)
 
 
@@ -53,7 +53,7 @@ def test_old_format_poses_checkpoint_restorable(tmp_path):
     """Pre-full-map checkpoints ({R, t, frame_idx}, no state_keys) must
     still key correctly through SlamSystem's format shim, and the full
     restore must reject them with a clear error instead of a KeyError."""
-    from akaze_tpu.slam.system import SlamSystem
+    from akaze_jax.slam.system import SlamSystem
 
     p = str(tmp_path / "old.npz")
     R = np.stack([np.eye(3, dtype=np.float32)] * 2)

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from akaze_tpu.io import (FrameSequence, load_kitti_poses, save_kitti_poses,
+from akaze_jax.io import (FrameSequence, load_kitti_poses, save_kitti_poses,
                           ate_rmse, synthetic_sequence, save_pgm)
 
 
@@ -70,7 +70,7 @@ class TestFrameSequence:
 
 class TestCli:
     def test_demo_runs(self, tmp_path, rng, capsys):
-        from akaze_tpu.cli import main
+        from akaze_jax.cli import main
         frames, _ = synthetic_sequence(rng, n_frames=2, size=(160, 200),
                                        shift_per_frame=(2.0, 3.0))
         lp = str(tmp_path / "l.pgm")
@@ -93,7 +93,7 @@ class TestCli:
         import jax
         if len(jax.devices()) < 2:
             pytest.skip("needs 2 (virtual) devices")
-        from akaze_tpu.cli import main
+        from akaze_jax.cli import main
         frames, _ = synthetic_sequence(rng, n_frames=2, size=(160, 200),
                                        shift_per_frame=(2.0, 3.0))
         lp = str(tmp_path / "l.pgm")
@@ -148,9 +148,9 @@ class TestKittiEval:
 
 class TestDebugPlanes:
     def test_debug_planes_and_dump(self, tmp_path, test_image):
-        from akaze_tpu import AkazeConfig
-        from akaze_tpu.plan import build_plan
-        from akaze_tpu.debug import debug_planes, dump_planes
+        from akaze_jax import AkazeConfig
+        from akaze_jax.plan import build_plan
+        from akaze_jax.debug import debug_planes, dump_planes
         cfg = AkazeConfig(max_pts=128, noctaves=2)
         plan = build_plan(*test_image.shape, cfg)
         planes = debug_planes(test_image, plan)

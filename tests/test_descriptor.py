@@ -1,13 +1,15 @@
 import math
 
+import pytest
+
 import numpy as np
 import jax.numpy as jnp
 
-from akaze_tpu import AkazeConfig
-from akaze_tpu.descriptor import (_compare_indices, _descriptor_window,
+from akaze_jax import AkazeConfig
+from akaze_jax.descriptor import (_compare_indices, _descriptor_window,
                                   _orient_grid, descriptors_to_bytes,
                                   fast_atan2)
-from akaze_tpu.config import DESCRIPTOR_BITS
+from akaze_jax.config import DESCRIPTOR_BITS
 
 
 def test_compare_indices_structure():
@@ -67,3 +69,57 @@ def test_descriptors_to_bytes_roundtrip():
     assert by.shape == (5, 61)
     unpacked = np.unpackbits(by, axis=1, bitorder="little")[:, :486]
     np.testing.assert_array_equal(unpacked, bits)
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_orient_describe_match_golden(fixed):
+    """The gather-form orientation and MLDB descriptor against the numpy
+    oracle (golden_pipeline.orient_golden / describe_golden) on the SAME
+    planes and keypoints, so only these two stages are compared.  The
+    samples are exact reads; the oracle sums cells sequentially while the
+    pipeline takes one float32 product, so a rare near-tie comparison may
+    flip."""
+    import jax
+    from akaze_jax.descriptor import compute_descriptors, compute_orientation
+    from akaze_jax.detect import detect_keypoints, flatten_pyramid
+    from akaze_jax.plan import build_plan
+    from akaze_jax.scale_space import build_scale_space
+    from akaze_jax.io import textured_image
+    from golden_pipeline import describe_golden, orient_golden
+
+    img = textured_image((192, 256), seed=1)
+    img = img.astype(np.int32) if fixed else img.astype(np.float32) / 255
+    plan = build_plan(*img.shape, AkazeConfig(max_pts=512))
+
+    @jax.jit
+    def run(im):
+        octs, _ = build_scale_space(im, plan, fixed)
+        kps = detect_keypoints(octs, plan, fixed)
+        flat = flatten_pyramid(octs)
+        angle = compute_orientation(kps, flat, plan, fixed)
+        return octs, kps, angle, compute_descriptors(kps, angle, flat, plan,
+                                                     fixed).words
+
+    octs, kps, angle, words = run(jnp.asarray(img))
+    n = int(kps.count)
+    assert n > 30
+    gocts = [{k: np.asarray(getattr(o, k)) for k in ("L", "lx", "ly")}
+             for o in octs]
+    angle = np.asarray(angle)
+    words = np.asarray(words)
+    ga, flips = [], []
+    for i in range(n):
+        kp = {k: np.asarray(getattr(kps, k))[i]
+              for k in ("x", "y", "size", "layer")}
+        ga.append(orient_golden(kp, gocts, plan.config.max_scale, fixed))
+        bits = describe_golden(kp, angle[i], gocts, plan.config.max_scale,
+                               fixed=fixed)
+        got = np.unpackbits(words[i].view(np.uint8), bitorder="little")
+        flips.append(int((got[:486] != bits).sum()))
+    da = np.abs(angle[:n] - np.asarray(ga))
+    da = np.minimum(da, 2 * np.pi - da)
+    assert (da < 1e-4).mean() > 0.97, (da < 1e-4).mean()
+    flips = np.asarray(flips)
+    assert np.median(flips) == 0 and flips.mean() < 1.0, flips.mean()
+    # dead slots carry zero words and angles
+    assert not words[n:].any() and not angle[n:].any()

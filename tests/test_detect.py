@@ -1,11 +1,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from akaze_tpu import AkazeConfig
-from akaze_tpu.plan import build_plan
-from akaze_tpu.detect import (FMIN_VAL, Keypoints, nms, select_keypoints,
+from akaze_jax import AkazeConfig
+from akaze_jax.plan import build_plan
+from akaze_jax.detect import (FMIN_VAL, Keypoints, nms, select_keypoints,
                               refine_keypoints, flatten_pyramid)
-from akaze_tpu.scale_space import OctaveData
+from akaze_jax.scale_space import OctaveData
 
 
 def _maps(h, w, pts):
@@ -96,7 +96,7 @@ def test_select_keypoints_overflow_flag():
     """Dropped survivors must be signalled: a row overflowing ROW_CAP or a
     total beyond max_pts sets kps.overflow (the reference clamps silently,
     akaze.cpp:451)."""
-    from akaze_tpu.detect import ROW_CAP
+    from akaze_jax.detect import ROW_CAP
     h, w = 64, 200
     r = jnp.ones((h, w), jnp.float32)
     s = jnp.full((h, w), 2.4, jnp.float32)
@@ -110,7 +110,7 @@ def test_select_keypoints_overflow_flag():
 
     # 2) one 128-lane tile with more than TILE_CAP survivors: tail
     #    dropped, flagged
-    from akaze_tpu.detect import TILE_CAP
+    from akaze_jax.detect import TILE_CAP
     m = np.zeros((h, w), bool)
     m[10, 10:10 + TILE_CAP + 6] = True
     kps = select_keypoints(jnp.asarray(m), r, s, l, 128)
@@ -168,9 +168,9 @@ def test_odd_image_sizes_multi_octave(test_image):
     expansion back to full resolution (a 201x333 image once crashed with a
     (200,332) vs (201,333) broadcast error)."""
     import jax.numpy as jnp
-    from akaze_tpu import AkazeConfig
-    from akaze_tpu.plan import build_plan
-    from akaze_tpu.pipeline import detect_and_compute
+    from akaze_jax import AkazeConfig
+    from akaze_jax.plan import build_plan
+    from akaze_jax.pipeline import detect_and_compute
 
     img = test_image[:191, :255]  # odd, still >= 80 after one halving
     cfg = AkazeConfig(max_pts=256, noctaves=2)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from akaze_tpu.fed import fed_tau_by_process_time
+from akaze_jax.fed import fed_tau_by_process_time
 
 import golden
 

@@ -1,7 +1,7 @@
 """End-to-end golden parity: the composed JAX pipeline (scale space ->
 detect -> refine -> orient -> describe) against the independent numpy
-oracle (golden_pipeline.py), on real image crops at two sizes, float and
-fixed.
+oracle (golden_pipeline.py), on crops of the seeded textured stock-shape
+image at two sizes, float and fixed.
 
 Detection must agree exactly (count, order, position, layer); descriptor
 bits are compared with a small tolerance because the oracle accumulates
@@ -14,23 +14,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from akaze_tpu import Akaze, AkazeConfig
+from akaze_jax import Akaze, AkazeConfig
 from golden_pipeline import full_pipeline_golden, DEFAULT_CFG
 
 
 @pytest.fixture(scope="module")
-def base_image():
-    import os
-    path = "/root/reference/data/left.pgm"
-    if not os.path.exists(path):
-        pytest.skip("reference image unavailable")
-    from akaze_tpu.io import load_pgm
-    return load_pgm(path)
+def base_image(stereo_pair):
+    return stereo_pair[0]
 
 
 def run_pipeline(img_u8, fixed):
-    cfg = AkazeConfig(max_pts=2048, bf16_sampling=False,
-                      pallas_descriptor="off")
+    cfg = AkazeConfig(max_pts=2048)
     det = Akaze(cfg, fixed=fixed)
     inp = img_u8 if fixed else img_u8.astype(np.float32) / 255.0
     f = det.detect_and_compute(inp)
@@ -92,13 +86,12 @@ def test_full_pipeline_matches_golden_160x208(base_image):
 @pytest.mark.slow
 @pytest.mark.skipif(
     not __import__("os").environ.get("RUN_FULLRES"),
-    reason="full-res oracle takes many minutes on the 1-CPU box; run "
-           "explicitly with RUN_FULLRES=1 (r4 execution recorded in "
-           "BENCH_NOTES.md 'Full-res golden')")
+    reason="full-res oracle takes many minutes on one CPU; run "
+           "explicitly with RUN_FULLRES=1")
 def test_full_pipeline_matches_golden_960x1280(base_image):
-    """The headline shape itself (960x1280, the stock pair) against the
-    numpy oracle — full-res-only drift (e.g. tile-cap interactions at
-    scale) is pinned here (r2 verdict item #6)."""
+    """The headline shape itself (960x1280) against the numpy oracle —
+    full-res-only drift (e.g. tile-cap interactions at scale) is pinned
+    here."""
     got = run_pipeline(base_image, fixed=False)
     want = run_golden(base_image, fixed=False)
     assert len(want["x"]) > 300

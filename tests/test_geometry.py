@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from akaze_tpu.geometry import (se3_exp, se3_log, se3_inverse, se3_compose,
+from akaze_jax.geometry import (se3_exp, se3_log, se3_inverse, se3_compose,
                                 se3_apply, so3_exp, so3_log,
                                 essential_from_eight, decompose_essential,
                                 triangulate, sampson_error, recover_pose,
                                 ransac_essential)
-from akaze_tpu.geometry.se3 import hat
+from akaze_jax.geometry.se3 import hat
 
 
 def random_rotation(rng):
@@ -163,7 +163,7 @@ class TestRansac:
 
 class TestHomography:
     def test_exact_recovery(self, rng):
-        from akaze_tpu.geometry.homography import (homography_from_points,
+        from akaze_jax.geometry.homography import (homography_from_points,
                                                    homography_transfer_error)
         H_true = np.asarray([[1.1, 0.05, 3.0], [-0.04, 0.95, -2.0],
                              [1e-4, -2e-4, 1.0]])
@@ -177,7 +177,7 @@ class TestHomography:
         assert np.median(err) < 1e-3  # squared px
 
     def test_ransac_with_outliers(self, rng):
-        from akaze_tpu.geometry.homography import ransac_homography
+        from akaze_jax.geometry.homography import ransac_homography
         H_true = np.asarray([[0.9, 0.1, 5.0], [-0.1, 1.05, 2.0],
                              [2e-4, 1e-4, 1.0]])
         n = 150
@@ -199,7 +199,7 @@ class TestHomography:
 
 class TestPnP:
     def test_dlt_pnp_recovers_pose(self, rng):
-        from akaze_tpu.geometry.homography import pnp_dlt
+        from akaze_jax.geometry.homography import pnp_dlt
         X, words = None, None
         Xw = rng.uniform([-2, -2, 4], [2, 2, 10], (30, 3)).astype(np.float32)
         R_true = random_rotation(rng)
@@ -213,3 +213,19 @@ class TestPnP:
         R, t = pnp_dlt(jnp.asarray(Xw), jnp.asarray(u, jnp.float32))
         np.testing.assert_allclose(np.asarray(R), R_true, atol=1e-3)
         np.testing.assert_allclose(np.asarray(t), t_true, atol=1e-2)
+
+
+def test_solvers_trace_f32_products_at_highest_precision():
+    """The jitted back-end solvers run every f32 matrix product at
+    Precision.HIGHEST (on a GPU the default may be TF32)."""
+    import re
+    from akaze_jax.geometry import ransac_essential
+
+    x = jnp.zeros((16, 2), jnp.float32)
+    jaxpr = str(jax.make_jaxpr(ransac_essential)(
+        jax.random.PRNGKey(0), x, x, jnp.ones(16, bool)))
+    dots = re.findall(r"dot_general\[(.*?)\n\s*\]", jaxpr, re.S)
+    assert dots and all("HIGHEST" in d for d in dots), dots[:2]
+    plain = str(jax.make_jaxpr(lambda a, b: a @ b)(jnp.ones((3, 3)),
+                                                   jnp.ones((3, 3))))
+    assert "HIGHEST" not in plain

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from akaze_tpu.slam.odometry import Intrinsics, Keyframe
-from akaze_tpu.slam.system import SlamSystem, SlamConfig, KeyframeIndex
-from akaze_tpu.slam.posegraph import _edge_residuals, PoseGraph
+from akaze_jax.slam.odometry import Intrinsics, Keyframe
+from akaze_jax.slam.system import SlamSystem, SlamConfig, KeyframeIndex
+from akaze_jax.slam.posegraph import _edge_residuals, PoseGraph
 from test_odometry import synth_features, project_features, INTR
 
 
@@ -112,7 +112,7 @@ def test_signature_recall_on_warped_real_keyframes(stereo_pair):
     queries are shifted + photometrically perturbed versions.  The true
     keyframe must rank inside the loop_candidates=4 prefilter window for
     >= 80% of queries — prefilter misses are silent lost loops."""
-    from akaze_tpu import Akaze, AkazeConfig
+    from akaze_jax import Akaze, AkazeConfig
 
     left, _ = stereo_pair
     det = Akaze(AkazeConfig(max_pts=1024, noctaves=2))

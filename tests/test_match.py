@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from akaze_tpu.match import hamming_distance_matrix, match
+from akaze_jax.match import hamming_distance_matrix, match
 
 import golden
 
@@ -77,7 +77,7 @@ def test_match_ignores_invalid_train():
 
 class TestPallasMatcher:
     def test_interpret_matches_xla(self, rng):
-        from akaze_tpu.match import match
+        from akaze_jax.match import match
         import jax.numpy as jnp
         n1, n2 = 200, 300   # deliberately not multiples of 128
         w1 = rng.integers(0, 2**32, (n1, 16), dtype=np.uint64).astype(

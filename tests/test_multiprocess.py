@@ -32,7 +32,7 @@ def test_two_process_landmark_ba_matches_single_process(tmp_path):
     # single-process reference on this process's own (2, 4) host/chip mesh
     sys.path.insert(0, HERE)
     from mp_problem import make_problem
-    from akaze_tpu.parallel import (make_host_chip_mesh, partition_landmarks,
+    from akaze_jax.parallel import (make_host_chip_mesh, partition_landmarks,
                                     gather_points,
                                     landmark_sharded_bundle_adjust)
     R, t, X0, prob = make_problem()
@@ -47,7 +47,6 @@ def test_two_process_landmark_ba_matches_single_process(tmp_path):
     port = 21000 + os.getpid() % 2000
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["JAX_TEST_CACHE"] = os.path.join(HERE, "..", ".jax_cache")
     env.pop("JAX_PLATFORMS", None)
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(HERE, "mp_worker.py"), str(pid),
@@ -73,11 +72,11 @@ def test_two_process_landmark_ba_matches_single_process(tmp_path):
     # agree with the single-process matcher on the same gathered set ----
     from mp_problem import make_frames
     import jax.numpy as jnp
-    from akaze_tpu import AkazeConfig
-    from akaze_tpu.plan import build_plan
-    from akaze_tpu.pipeline import detect_and_compute
-    from akaze_tpu.match import match
-    from akaze_tpu.parallel import make_mesh, dp_pipeline_step
+    from akaze_jax import AkazeConfig
+    from akaze_jax.plan import build_plan
+    from akaze_jax.pipeline import detect_and_compute
+    from akaze_jax.match import match
+    from akaze_jax.parallel import make_mesh, dp_pipeline_step
 
     h, w = 96, 128
     cfg = AkazeConfig(max_pts=256, noctaves=2)
@@ -113,10 +112,9 @@ def test_two_process_landmark_ba_matches_single_process(tmp_path):
     # devices (the 3|4 halo exchange crossed hosts); the keypoints must
     # equal the unsharded single-process program exactly ----
     from mp_problem import make_big_image
-    from akaze_tpu.config import AkazeConfig as _AC
+    from akaze_jax.config import AkazeConfig as _AC
 
-    cfg_sp = _AC(pallas_scale_space="off", pallas_descriptor="off",
-                 max_pts=512)
+    cfg_sp = _AC(max_pts=512)
     plan_sp = build_plan(256, 320, cfg_sp)
     ref_sp = detect_and_compute(jnp.asarray(make_big_image(256, 320)),
                                 plan_sp, describe=False)

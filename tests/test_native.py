@@ -1,13 +1,12 @@
 """Tests for the C++ native host runtime (compiled on the fly with g++)."""
 
-import os
 
 import numpy as np
 import pytest
 
-from akaze_tpu.native import (get_lib, fed_tau_native, load_pgm_native,
+from akaze_jax.native import (get_lib, fed_tau_native, load_pgm_native,
                               FrameLoader, hamming_match_native)
-from akaze_tpu.fed import fed_tau_by_process_time
+from akaze_jax.fed import fed_tau_by_process_time
 
 
 needs_native = pytest.mark.skipif(get_lib() is None,
@@ -34,13 +33,13 @@ class TestNativeFed:
 
 @needs_native
 class TestNativePgm:
-    def test_decode_matches_python(self, tmp_path):
-        from akaze_tpu.io import load_pgm
-        ref = "/root/reference/data/left.pgm"
-        if not os.path.exists(ref):
-            pytest.skip("reference image unavailable")
+    def test_decode_matches_python(self, tmp_path, stereo_pair):
+        from akaze_jax.io import load_pgm, save_pgm
+        ref = str(tmp_path / "left.pgm")
+        save_pgm(ref, stereo_pair[0])
         a = load_pgm(ref)
         b = load_pgm_native(ref)
+        np.testing.assert_array_equal(a, stereo_pair[0])
         np.testing.assert_array_equal(a, b)
 
     def test_decode_synthetic(self, tmp_path, rng):
@@ -77,7 +76,7 @@ class TestFrameLoader:
 class TestNativeMatch:
     def test_matches_jax_matcher(self, rng):
         import jax.numpy as jnp
-        from akaze_tpu.match import match
+        from akaze_jax.match import match
         n1, n2 = 64, 96
         w1 = rng.integers(0, 2 ** 32, (n1, 16), dtype=np.uint64).astype(
             np.uint32)

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from akaze_tpu.pipeline import Features
-from akaze_tpu.slam.odometry import (Intrinsics, _two_view, build_local_ba)
-from akaze_tpu.slam import bundle_adjust
-from akaze_tpu.slam.ba import ba_cost
-from akaze_tpu.geometry import se3_inverse, so3_exp
+from akaze_jax.pipeline import Features
+from akaze_jax.slam.odometry import (Intrinsics, _two_view, build_local_ba)
+from akaze_jax.slam import bundle_adjust
+from akaze_jax.slam.ba import ba_cost
+from akaze_jax.geometry import se3_inverse, so3_exp
 
 
 INTR = Intrinsics(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
@@ -57,8 +57,8 @@ def test_detection_overflow_propagates_to_vo(test_image):
     """r3 verdict item 8: a capacity-lossy detection (Features.overflow)
     must be visible in the product path — VisualOdometry records the flag
     and the frame index, not just the CLI JSON."""
-    from akaze_tpu import AkazeConfig
-    from akaze_tpu.slam.odometry import VisualOdometry
+    from akaze_jax import AkazeConfig
+    from akaze_jax.slam.odometry import VisualOdometry
 
     img = np.asarray(test_image[:160, :208], np.float32)
     vo = VisualOdometry(INTR, AkazeConfig(max_pts=4, noctaves=2))
@@ -125,7 +125,7 @@ class TestLocalBA:
         key = jax.random.PRNGKey(1)
         dxi = jax.random.normal(key, (Rs.shape[0], 6)) * 0.01
         dxi = dxi.at[0].set(0.0)
-        from akaze_tpu.geometry import se3_exp, se3_compose
+        from akaze_jax.geometry import se3_exp, se3_compose
         dR, dt = se3_exp(dxi)
         Rp, tp = jax.vmap(se3_compose)(Rs, ts, dR, dt)
         Xp = X0 + jax.random.normal(jax.random.PRNGKey(2), X0.shape) * 0.02

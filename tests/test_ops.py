@@ -2,13 +2,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from akaze_tpu.ops import (gauss_half_kernel, gauss_half_kernel_fixed,
+from akaze_jax.ops import (gauss_half_kernel, gauss_half_kernel_fixed,
                            sep_conv2d, sep_conv2d_fixed, down_with_smooth,
                            scharr_gradient_xy, scharr_magnitude,
                            scaled_derivatives, hessian_determinant,
                            nld_step, nld_step_fixed, conductivity,
                            percentile_contrast, percentile_contrast_fixed)
-from akaze_tpu.config import Diffusivity
+from akaze_jax.config import Diffusivity
 
 import golden
 

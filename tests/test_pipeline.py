@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from akaze_tpu import Akaze, AkazeConfig
-from akaze_tpu.pipeline import features_to_numpy
+from akaze_jax import Akaze, AkazeConfig
+from akaze_jax.pipeline import features_to_numpy
 
 
 @pytest.fixture(scope="module")
@@ -76,9 +76,9 @@ def test_max_pts_cap():
 class TestExports:
     def test_features_to_numpy_trims_to_count(self, test_image):
         import jax.numpy as jnp
-        from akaze_tpu import AkazeConfig
-        from akaze_tpu.plan import build_plan
-        from akaze_tpu.pipeline import detect_and_compute, features_to_numpy
+        from akaze_jax import AkazeConfig
+        from akaze_jax.plan import build_plan
+        from akaze_jax.pipeline import detect_and_compute, features_to_numpy
         cfg = AkazeConfig(max_pts=256, noctaves=2)
         plan = build_plan(*test_image.shape, cfg)
         f = detect_and_compute(jnp.asarray(test_image), plan)
@@ -90,7 +90,7 @@ class TestExports:
         assert d["valid"].all()
 
     def test_descriptors_to_bytes_layout(self, rng):
-        from akaze_tpu.descriptor import descriptors_to_bytes
+        from akaze_jax.descriptor import descriptors_to_bytes
         words = rng.integers(0, 2**32, (5, 16), dtype=np.uint64).astype(
             np.uint32)
         b = descriptors_to_bytes(words)
@@ -101,10 +101,10 @@ class TestExports:
 
     def test_config_validation(self):
         import pytest as _pytest
-        from akaze_tpu import AkazeConfig
+        from akaze_jax import AkazeConfig
         with _pytest.raises(ValueError):
             AkazeConfig(max_scale=9)
         with _pytest.raises(ValueError):
             AkazeConfig(noctaves=0)
         with _pytest.raises(ValueError):
-            AkazeConfig(pallas_descriptor="bogus")
+            AkazeConfig(max_scale=0)

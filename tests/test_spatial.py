@@ -19,11 +19,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from akaze_tpu import AkazeConfig
-from akaze_tpu.plan import build_plan
-from akaze_tpu.scale_space import build_scale_space
-from akaze_tpu.pipeline import detect_and_compute
-from akaze_tpu.parallel import (make_mesh, spatial_scale_space,
+from akaze_jax import AkazeConfig
+from akaze_jax.plan import build_plan
+from akaze_jax.scale_space import build_scale_space
+from akaze_jax.pipeline import detect_and_compute
+from akaze_jax.parallel import (make_mesh, spatial_scale_space,
                                 spatial_supported,
                                 spatial_detect_and_compute)
 
@@ -57,71 +57,12 @@ def _parity(img, cfg, mesh, fixed, n_dev):
 
 def test_spatial_scale_space_bit_parity_float(mesh8, rng):
     img = jnp.asarray(rng.random((256, 320)).astype(np.float32))
-    _parity(img, AkazeConfig(pallas_scale_space="off"), mesh8, False, 8)
+    _parity(img, AkazeConfig(), mesh8, False, 8)
 
 
 def test_spatial_scale_space_bit_parity_fixed(mesh8, rng):
     img = jnp.asarray((rng.random((256, 320)) * 255).astype(np.int32))
-    _parity(img, AkazeConfig(pallas_scale_space="off"), mesh8, True, 8)
-
-
-def test_spatial_fused_sublevel_parity(rng, monkeypatch):
-    """The row-sharded tier runs the FUSED Pallas sublevel kernel on
-    halo-extended blocks (interpret mode here): bit-exact vs the unsharded
-    fused path on both flavours, and the kernel must actually engage (no
-    silent XLA fallback)."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 (virtual) devices")
-    import akaze_tpu.ops.pallas_sublevel as psub
-    calls = {"n": 0}
-    real = psub.fused_sublevel
-
-    def counting(*a, **k):
-        calls["n"] += 1
-        return real(*a, **k)
-
-    monkeypatch.setattr(psub, "fused_sublevel", counting)
-
-    img = _blob_image(rng, 256, 320)
-    cfg = AkazeConfig(pallas_scale_space="interpret")
-    plan = build_plan(256, 320, cfg)
-    mesh = make_mesh(4)
-
-    # 8 devices: octave-1 blocks (16 rows) can't cover the fused halo and
-    # fall back per sublevel to the XLA stencils while octave 0 stays
-    # fused — the MIXED composition must still be exact vs the unsharded
-    # fused path (which fuses everything)
-    ref8_o, _ = jax.jit(lambda a: build_scale_space(a, plan))(img)
-    sp8_o, _ = jax.jit(lambda a: spatial_scale_space(
-        a, plan, make_mesh(8)))(img)
-    np.testing.assert_allclose(np.asarray(ref8_o[1].L),
-                               np.asarray(sp8_o[1].L), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(ref8_o[0].det),
-                                  np.asarray(sp8_o[0].det))
-
-    from akaze_tpu.config import Diffusivity
-    cases = [(False, Diffusivity.PM_G2), (True, Diffusivity.PM_G2),
-             (False, Diffusivity.WEICKERT)]
-    for fixed, diff in cases:
-        pl = (plan if diff == Diffusivity.PM_G2 else build_plan(
-            256, 320, AkazeConfig(pallas_scale_space="interpret",
-                                  diffusivity=diff)))
-        x = ((np.asarray(img) * 255).astype(np.int32) if fixed
-             else img)
-        x = jnp.asarray(x)
-        ref_o, ref_kc = jax.jit(
-            lambda a: build_scale_space(a, pl, fixed=fixed))(x)
-        calls["n"] = 0
-        sp_o, sp_kc = jax.jit(
-            lambda a: spatial_scale_space(a, pl, mesh, fixed=fixed))(x)
-        assert calls["n"] > 0, "fused kernel never engaged in the shard"
-        np.testing.assert_array_equal(np.asarray(ref_kc),
-                                      np.asarray(sp_kc))
-        for a, b in zip(ref_o, sp_o):
-            for nm in ("L", "det", "lx", "ly"):
-                np.testing.assert_array_equal(np.asarray(getattr(a, nm)),
-                                              np.asarray(getattr(b, nm)),
-                                              err_msg=nm)
+    _parity(img, AkazeConfig(), mesh8, True, 8)
 
 
 def _blob_image(rng, h, w):
@@ -139,8 +80,7 @@ def test_spatial_detect_parity(mesh8, rng):
     neighbour ghost rows or the exact constant fill the unsharded pads
     use, so positions/sizes/layers/responses must be identical."""
     img = _blob_image(rng, 256, 320)
-    cfg = AkazeConfig(pallas_scale_space="off", pallas_descriptor="off",
-                      max_pts=512)
+    cfg = AkazeConfig(max_pts=512)
     plan = build_plan(256, 320, cfg)
     ok, why = spatial_supported(plan, 8, detect=True)
     assert ok, why
@@ -160,8 +100,7 @@ def test_spatial_detect_parity_fixed(mesh8, rng):
     """Fixed (16.16) row-sharded detection is bit-exact vs unsharded."""
     img = (np.asarray(_blob_image(rng, 256, 320)) * 255).astype(np.int32)
     img = jnp.asarray(img)
-    cfg = AkazeConfig(pallas_scale_space="off", pallas_descriptor="off",
-                      max_pts=512)
+    cfg = AkazeConfig(max_pts=512)
     plan = build_plan(256, 320, cfg)
     ref = jax.jit(lambda x: detect_and_compute(
         x, plan, fixed=True, describe=False))(img)
@@ -183,8 +122,7 @@ def test_spatial_describe_parity(rng):
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 (virtual) devices")
     img = _blob_image(rng, 1024, 160)
-    cfg = AkazeConfig(pallas_scale_space="off", pallas_descriptor="off",
-                      max_pts=512)
+    cfg = AkazeConfig(max_pts=512)
     plan = build_plan(1024, 160, cfg)
     ok, why = spatial_supported(plan, 4, detect=True, describe=True)
     assert ok, why
@@ -205,15 +143,14 @@ def test_spatial_describe_parity(rng):
 
 
 def test_spatial_describe_parity_gathered_octaves(rng):
-    """Octaves too thin for the WSIZE/2 window halo are all-gathered whole;
+    """Octaves too thin for the 64-row sampling halo are all-gathered whole;
     descriptors must still match the unsharded path exactly.  512x160 over
     4 devices: octave 0 halo-exchanges (128 rows/dev), octaves 1-2 (64/32
     rows/dev < 65) take the gather path."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 (virtual) devices")
     img = _blob_image(rng, 512, 160)
-    cfg = AkazeConfig(pallas_scale_space="off", pallas_descriptor="off",
-                      max_pts=512, noctaves=3)
+    cfg = AkazeConfig(max_pts=512, noctaves=3)
     plan = build_plan(512, 160, cfg)
     ok, why = spatial_supported(plan, 4, detect=True, describe=True)
     assert ok, why
@@ -234,47 +171,15 @@ def test_spatial_describe_parity_gathered_octaves(rng):
     assert np.unpackbits(wa ^ wb).sum() == 0
 
 
-def test_spatial_describe_parity_pallas(rng):
-    """The spatial tier runs the FUSED Pallas descriptor kernel per shard
-    (interpret mode here), on halo-extended plane stacks with keypoint y
-    shifted into the local frame by an exact octave-grid multiple: bits
-    must equal the unsharded Pallas path.  512x160 over 4 devices with 3
-    octaves covers both the halo-exchange (octave 0) and whole-gather
-    (octaves 1-2) window paths."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs 4 (virtual) devices")
-    img = _blob_image(rng, 512, 160)
-    cfg = AkazeConfig(pallas_scale_space="interpret",
-                      pallas_descriptor="interpret", max_pts=512,
-                      noctaves=3)
-    plan = build_plan(512, 160, cfg)
-    mesh = make_mesh(4)
-    ref = jax.jit(lambda x: detect_and_compute(x, plan))(img)
-    sp = jax.jit(lambda x: spatial_detect_and_compute(x, plan, mesh))(img)
-    n = int(ref.count)
-    assert int(sp.count) == n and n > 50
-    np.testing.assert_array_equal(np.asarray(ref.y)[:n],
-                                  np.asarray(sp.y)[:n])
-    np.testing.assert_array_equal(np.asarray(ref.angle)[:n],
-                                  np.asarray(sp.angle)[:n])
-    # keypoints must land on a gathered octave too
-    assert (np.asarray(ref.layer)[:n] // cfg.max_scale).max() >= 1
-    wa = np.asarray(ref.words)[:n].view(np.uint8)
-    wb = np.asarray(sp.words)[:n].view(np.uint8)
-    assert np.unpackbits(wa ^ wb).sum() == 0
-
-
-def test_spatial_describe_parity_pallas_fixed(rng):
-    """Fixed (16.16) flavour of the spatial Pallas descriptor path with
-    bit-faithful f32 sampling (fixed_exact_sampling): bits equal the
-    unsharded fixed Pallas path."""
+def test_spatial_describe_parity_fixed(rng):
+    """Fixed (16.16) row-sharded full front-end == unsharded, descriptor
+    bits included, over both the halo-exchange (octave 0) and whole-gather
+    (octaves 1-2) sampling paths."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 (virtual) devices")
     img = (np.asarray(_blob_image(rng, 512, 160)) * 255).astype(np.int32)
     img = jnp.asarray(img)
-    cfg = AkazeConfig(pallas_scale_space="interpret",
-                      pallas_descriptor="interpret", max_pts=512,
-                      noctaves=3, fixed_exact_sampling=True)
+    cfg = AkazeConfig(max_pts=512, noctaves=3)
     plan = build_plan(512, 160, cfg)
     mesh = make_mesh(4)
     ref = jax.jit(lambda x: detect_and_compute(x, plan, fixed=True))(img)
@@ -282,8 +187,11 @@ def test_spatial_describe_parity_pallas_fixed(rng):
         x, plan, mesh, fixed=True))(img)
     n = int(ref.count)
     assert int(sp.count) == n and n > 50
+    assert (np.asarray(ref.layer)[:n] // cfg.max_scale).max() >= 1
     np.testing.assert_array_equal(np.asarray(ref.y)[:n],
                                   np.asarray(sp.y)[:n])
+    np.testing.assert_array_equal(np.asarray(ref.angle)[:n],
+                                  np.asarray(sp.angle)[:n])
     wa = np.asarray(ref.words)[:n].view(np.uint8)
     wb = np.asarray(sp.words)[:n].view(np.uint8)
     assert np.unpackbits(wa ^ wb).sum() == 0
@@ -291,8 +199,7 @@ def test_spatial_describe_parity_pallas_fixed(rng):
 
 def test_spatial_supports_stock_shape_describe():
     """The flagship 960x1280 shape row-shards over 4 devices with full
-    description (octaves 2-3 gather; the r2-era WSIZE/2 halo rule would
-    have rejected it)."""
+    description (octaves 2-3 gather)."""
     plan = build_plan(960, 1280, AkazeConfig())
     ok, why = spatial_supported(plan, 4, detect=True, describe=True)
     assert ok, why
@@ -304,10 +211,9 @@ def test_akaze_wrapper_mesh(rng):
     wrapper."""
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 (virtual) devices")
-    from akaze_tpu import Akaze
+    from akaze_jax import Akaze
     img = np.asarray(_blob_image(rng, 160, 200))
-    cfg = AkazeConfig(pallas_scale_space="off", pallas_descriptor="off",
-                      max_pts=512)
+    cfg = AkazeConfig(max_pts=512)
     ref = Akaze(cfg).detect_and_compute(img)
     sp = Akaze(cfg, mesh=make_mesh(2)).detect_and_compute(img)
     n = int(ref.count)

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from akaze_tpu.viz import (draw_keypoints, draw_matches, write_png, read_png,
+from akaze_jax.viz import (draw_keypoints, draw_matches, write_png, read_png,
                            to_rgb)
 
 
