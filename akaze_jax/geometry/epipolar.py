@@ -1,10 +1,10 @@
 """Two-view epipolar geometry, batched.
 
-Essential-matrix estimation uses the normalized 8-point algorithm expressed
-as a batched 9x9 symmetric eigen-problem (``jnp.linalg.eigh``): the nullspace
-of A is the smallest eigenvector of A^T A, which XLA batches far better than
-per-sample SVDs of tall matrices.  The essential-manifold projection and pose
-decomposition use small closed-form 3x3 SVDs.
+Essential-matrix estimation uses the normalized 8-point algorithm: the
+nullspace of the constraint matrix A is its last right singular vector, from
+a batched 9x9 SVD (tall A is first reduced to its 9x9 QR factor R, which has
+the same right singular vectors).  The essential-manifold projection and pose
+decomposition use small 3x3 SVDs.
 
 Conventions: points are *normalized camera coordinates* (pixel coords
 premultiplied by K^-1), x2^T E x1 = 0, and the recovered pose (R, t) maps
@@ -43,9 +43,15 @@ def essential_from_eight(x1, x2, weights=None):
         x1.shape[:-1] + (9,))
     if weights is not None:
         A = A * weights[..., None]
-    AtA = jnp.swapaxes(A, -1, -2) @ A  # [..., 9, 9]
-    evals, evecs = jnp.linalg.eigh(AtA)
-    e = evecs[..., :, 0]  # smallest eigenvalue's eigenvector
+    # the smallest eigenvector of A^T A would square A's condition number:
+    # in f32 that left the null vector to the eigensolver's rounding, and
+    # LAPACK and cuSOLVER then chose different RANSAC hypotheses
+    if A.shape[-2] > 9:
+        A = jnp.linalg.qr(A, mode="r")                     # [..., 9, 9]
+    elif A.shape[-2] < 9:
+        A = jnp.concatenate([A, jnp.zeros(
+            A.shape[:-2] + (9 - A.shape[-2], 9), A.dtype)], axis=-2)
+    e = jnp.linalg.svd(A)[2][..., -1, :]  # smallest singular value's vector
     E = e.reshape(e.shape[:-1] + (3, 3))
     # project to the essential manifold: singular values -> (1, 1, 0)
     U, s, Vt = jnp.linalg.svd(E)

@@ -104,23 +104,21 @@ def match(words1, valid1, words2, valid2, x2, y2,
       max_dist: acceptance threshold (MAX_DIST, akazed.cu:11).
       use_pallas: matcher route, see ``kernel_route``.  The kernel scans
         only up to the last live query and train rows and never writes the
-        [N1, N2] distance matrix.  Its invalid train rows read as the
-        pseudo-distance 243, so it accepts exactly what the XLA path
-        accepts whenever ``max_dist <= 243``.
+        [N1, N2] distance matrix.  Both routes add 1e6 to the distance
+        of an invalid train row, so they accept the same matches for any
+        ``max_dist`` below 1e6.
     """
     route = kernel_route(use_pallas)
     if route != "xla":
         from .ops.pallas_match import hamming_top2
-        s1 = _signed_bits(words1)
-        # invalid train rows become zero -> constant pseudo-distance 243
-        s2 = _signed_bits(words2) * valid2[:, None].astype(jnp.bfloat16)
         # the kernel scans up to the LAST live row (+1), so work scales
         # with the live extent, not the slot capacity.  For the usual
         # prefix-compacted sets (detect.select_keypoints) this equals the
         # live count; for gathered multi-source train sets it still covers
         # every live row.
         best, second, bidx = hamming_top2(
-            s1, s2, last_live(valid1), last_live(valid2),
+            _signed_bits(words1), _signed_bits(words2), valid2,
+            last_live(valid1), last_live(valid2),
             interpret=(route == "interpret"))
         bidx = jnp.clip(bidx, 0, words2.shape[0] - 1)
     else:

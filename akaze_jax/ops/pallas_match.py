@@ -11,9 +11,10 @@ past the live query extent exit at once.
 
 Distances use the signed-bits identity of match.py:
     hamming(a, b) = (486 - <sa, sb>) / 2
-with sa, sb in {-1, 0, +1} as bf16 and f32 accumulation (exact).  Invalid
-and padded train rows are zero, a constant pseudo-distance of 243 >= MAX_DIST
-that never produces a false accept (see match.py).
+with sa, sb in {-1, 0, +1} as bf16 and f32 accumulation (exact).  A per-row
+f32 bias adds 1e6 to invalid train rows, as the XLA path does, and 1e9 to
+the padding rows, so the kernel's distances over the rows it scans equal the
+XLA path's for any ``max_dist``.
 
 Tie semantics equal ``jnp.argmin`` + masked second minimum: the first global
 minimum wins; equal top-2 values give best == second (rejected upstream).
@@ -36,11 +37,13 @@ BT = 64
 LANES = 512       # descriptor lanes (486 live bits)
 BITS = 486.0
 BIG = 1.0e9
+INVALID = 1.0e6   # the XLA path's bias on invalid train rows (match.py)
 
 
 def _kernel(counts_ref,   # [2] i32: query / train last-live-row + 1
             q_ref,        # [BQ, LANES] bf16 query signed bits
             t_ref,        # [N2, LANES] bf16 train signed bits (whole set)
+            bias_ref,     # [N2] f32 train row bias: 0 live, 1e6 invalid
             best_ref,     # out [BQ] f32
             second_ref,   # out [BQ] f32
             idx_ref):     # out [BQ] i32
@@ -54,8 +57,9 @@ def _kernel(counts_ref,   # [2] i32: query / train last-live-row + 1
 
         def body(j, carry):
             best, second, idx = carry
-            t = t_ref[pl.ds(pl.multiple_of(j * BT, BT), BT), :]
-            d = 0.5 * (BITS - pl.dot(q, t, trans_b=True))      # [BQ, BT]
+            rows = pl.ds(pl.multiple_of(j * BT, BT), BT)
+            d = (0.5 * (BITS - pl.dot(q, t_ref[rows, :], trans_b=True))
+                 + bias_ref[rows][None, :])                       # [BQ, BT]
             col = jax.lax.broadcasted_iota(jnp.int32, (BQ, BT), 1)
             m1 = jnp.min(d, axis=1)
             i1 = jnp.min(jnp.where(d == m1[:, None], col, BT), axis=1)
@@ -78,12 +82,13 @@ def _kernel(counts_ref,   # [2] i32: query / train last-live-row + 1
 
 
 @partial(jax.jit, static_argnames=("interpret",))
-def hamming_top2(s1, s2, count1, count2, interpret: bool = False):
+def hamming_top2(s1, s2, valid2, count1, count2, interpret: bool = False):
     """Running-top-2 Hamming matcher.
 
     Args:
       s1: [N1, 512] bf16 signed query bits.
-      s2: [N2, 512] bf16 signed train bits, invalid rows zeroed.
+      s2: [N2, 512] bf16 signed train bits.
+      valid2: [N2] bool train validity; invalid rows score distance + 1e6.
       count1/count2: index of the last live row + 1 of each set (the live
         count for prefix-compacted sets); work scales with these extents
         instead of the slot capacities.
@@ -96,8 +101,10 @@ def hamming_top2(s1, s2, count1, count2, interpret: bool = False):
     p1, p2 = (-n1) % BQ, (-n2) % BT
     if p1:
         s1 = jnp.pad(s1, ((0, p1), (0, 0)))
+    bias = jnp.where(valid2, 0.0, INVALID).astype(jnp.float32)
     if p2:
-        s2 = jnp.pad(s2, ((0, p2), (0, 0)))     # zero rows: distance 243
+        s2 = jnp.pad(s2, ((0, p2), (0, 0)))
+        bias = jnp.pad(bias, (0, p2), constant_values=BIG)
     counts = jnp.stack([jnp.asarray(count1, jnp.int32),
                         jnp.asarray(count2, jnp.int32)])
     n1p = n1 + p1
@@ -110,11 +117,12 @@ def hamming_top2(s1, s2, count1, count2, interpret: bool = False):
         grid=(n1p // BQ,),
         in_specs=[pl.BlockSpec((2,), lambda i: (0,)),
                   pl.BlockSpec((BQ, LANES), lambda i: (i, 0)),
-                  pl.BlockSpec((n2 + p2, LANES), lambda i: (0, 0))],
+                  pl.BlockSpec((n2 + p2, LANES), lambda i: (0, 0)),
+                  pl.BlockSpec((n2 + p2,), lambda i: (0,))],
         out_specs=(vec, vec, vec),
         backend="triton",
         compiler_params=pltriton.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
         name="hamming_top2",
-    )(counts, s1, s2)
+    )(counts, s1, s2, bias)
     return best[:n1], second[:n1], idx[:n1]

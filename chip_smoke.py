@@ -21,7 +21,8 @@ non-zero without printing a result):
      golden at 10,000 slots with phase b's live counts, exactly equal;
      both times;
   f. SLAM back-end: benchmarks/long_sequence_eval.run over 20 frames with
-     local BA and PGO, on the card and on the CPU backend;
+     local BA and PGO, on the card and on the CPU backend, and every
+     two-view solve replayed on the CPU (benchmarks/backend_diff.py);
   g. (--four-cards) data-parallel step, sharded matcher, sharded PGO/BA,
      the spatial tier and SlamSystem(mesh=...) against one device.
 
@@ -298,6 +299,7 @@ SLAM_KW = dict(n_frames=20, laps=1 / 3, local_ba_every=4, n_world_pts=600,
 def phase_slam(cpu, kw=None):
     import jax
     sys.path.insert(0, os.path.join(REPO, "benchmarks"))
+    from backend_diff import run_variant
     from long_sequence_eval import run
 
     kw = dict(SLAM_KW, **(kw or {}))
@@ -319,14 +321,27 @@ def phase_slam(cpu, kw=None):
           "local BA and PGO ran")
     check(gpu["keyframe_index"] == ref["keyframe_index"],
           "keyframe decisions identical to the CPU run")
-    # cuSOLVER's eigh/SVD and GPU reduction orders differ from the CPU's in
-    # the last bits, which moves RANSAC inlier sets and so the trajectory
-    # at the millimetre level; 0.1% of the trajectory length bounds that
-    tol = max(0.02 * ref["ate_slam"], 1e-3 * ref["trajectory_length"])
-    check(abs(gpu["ate_slam"] - ref["ate_slam"]) <= tol,
-          f"ATE {gpu['ate_slam']} vs CPU {ref['ate_slam']} within "
-          f"{tol:.4g} (max of 2% and 0.1% of the "
-          f"{ref['trajectory_length']} trajectory)")
+    # bounds from card readings on this sequence (NVIDIA H100): the
+    # 8-point solve from an SVD gives ATE 0.0100 on card and CPU (ATE is
+    # reported to 1e-4 m); the earlier eigh(A^T A) solve gave 0.0213 on the
+    # card (0.0230 with TF32 products) against 0.0095 on the CPU
+    check(abs(gpu["ate_slam"] - ref["ate_slam"]) <= 1e-3,
+          f"ATE {gpu['ate_slam']} vs CPU {ref['ate_slam']} within 1e-3 m "
+          f"on the {ref['trajectory_length']} m keyframe trajectory")
+    # every two-view solve replayed on the CPU with the card's inputs: the
+    # same inlier sets, poses within 0.005 deg (rotation) and 0.03 deg
+    # (translation direction); card readings 0.0010 / 0.0062 deg, the
+    # eigh solve 0.040 / 0.443 deg (TF32: 0.040 / 0.429)
+    rep = run_variant("stock", cpu, False, verbose=False)
+    print(f"    two-view replay: {rep['solves']} solves, "
+          f"{rep['solves_with_other_best']} pick another RANSAC "
+          f"hypothesis, {rep['solves_with_other_inliers']} another inlier "
+          f"set; max rotation diff {rep['max_rot_deg']:.3g} deg, max "
+          f"translation direction diff {rep['max_t_dir_deg']:.3g} deg")
+    check(rep["solves_with_other_inliers"] == 0
+          and rep["max_rot_deg"] <= 0.005 and rep["max_t_dir_deg"] <= 0.03,
+          "two-view solves: inlier sets identical, rotation within 0.005 "
+          "deg and translation direction within 0.03 deg of the CPU")
 
 
 # --------------------------------------------------------------------------
@@ -343,7 +358,7 @@ def _devices_of(tree):
 
 
 def phase_four_cards(shape=(960, 1280), max_pts=10000, n_pairs=8,
-                     ba_cams=60, ba_pts=400, n_dev=4):
+                     ba_cams=60, ba_pts=1000, n_dev=4):
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -359,6 +374,11 @@ def phase_four_cards(shape=(960, 1280), max_pts=10000, n_pairs=8,
 
     check(len(jax.devices()) >= n_dev, f"{len(jax.devices())} devices "
           f">= {n_dev}")
+    t_start = time.perf_counter()
+
+    def leg(name):
+        print(f"  [{time.perf_counter() - t_start:.0f} s] {name}", flush=True)
+
     mesh = make_mesh(n_dev)
     print(f"g. {n_dev} cards: mesh {dict(mesh.shape)}, devices "
           f"{[d.id for d in mesh.devices.ravel()]}")
@@ -397,6 +417,7 @@ def phase_four_cards(shape=(960, 1280), max_pts=10000, n_pairs=8,
               f"{flips.mean():.4f}/kp < 2, match agreement "
               f"{agree.mean():.4f} > 0.99")
 
+    leg("sharded matcher")
     # sharded matcher vs match on the last pair (host copies: the
     # single-card features are committed to card 0)
     with mesh:
@@ -409,7 +430,9 @@ def phase_four_cards(shape=(960, 1280), max_pts=10000, n_pairs=8,
           and (np.asarray(sm.distance) == np.asarray(rm.distance)).all(),
           "sharded_match index and distance == match")
 
+    leg("sharded solvers")
     _four_card_solvers(mesh, n_dev, ba_cams, ba_pts)
+    leg("spatial tier")
 
     # spatial tier at the stock width: fixed bit-exact, float close
     A = pairs[0][0]
@@ -437,29 +460,46 @@ def phase_four_cards(shape=(960, 1280), max_pts=10000, n_pairs=8,
                   f"spatial float: {n} keypoints, |dx| <= 1e-3, bits "
                   f"{flips.mean():.4f}/kp < 2 vs one card")
 
-    # SlamSystem(mesh=...) vs one device: 12 frames at phase f's spacing
+    leg("SlamSystem(mesh)")
+    _four_card_slam(mesh)
+    leg("done")
+
+
+def _four_card_slam(mesh):
+    """SlamSystem(mesh=...) against one device on phase f's sequence (five
+    keyframes: local BA and PGO run inside the loop).  Both runs make the
+    same two-view solves on one card; only the sharded PGO and local BA
+    sum in another order, so the keyframes must match and the ATE agree to
+    a millimetre."""
     sys.path.insert(0, os.path.join(REPO, "benchmarks"))
     from long_sequence_eval import run
-    kw = dict(SLAM_KW, n_frames=12, laps=1 / 5)
-    rec = run(mesh=mesh, **kw)
-    ref = run(mesh=None, **kw)
+    t0 = time.perf_counter()
+    rec = run(mesh=mesh, **SLAM_KW)
+    t1 = time.perf_counter()
+    ref = run(mesh=None, **SLAM_KW)
+    print(f"    SLAM runs, compile included: mesh {t1 - t0:.1f} s, one "
+          f"device {time.perf_counter() - t1:.1f} s")
     print(f"    SLAM mesh: keyframes {rec['keyframe_index']}, ate "
-          f"{rec['ate_slam']}; one device: ate {ref['ate_slam']}")
+          f"{rec['ate_slam']}, sections {rec['sections']}; one device: "
+          f"keyframes {ref['keyframe_index']}, ate {ref['ate_slam']}")
+    check("local_ba" in rec["sections"] and "pgo" in rec["sections"],
+          "local BA and PGO ran under the mesh")
     check(rec["keyframe_index"] == ref["keyframe_index"]
-          and abs(rec["ate_slam"] - ref["ate_slam"])
-          <= max(0.02 * ref["ate_slam"], 1e-3 * ref["trajectory_length"]),
-          "SlamSystem(mesh) keyframes identical, ATE within max(2%, 0.1% "
-          "of the trajectory)")
+          and abs(rec["ate_slam"] - ref["ate_slam"]) <= 1e-3,
+          f"SlamSystem(mesh) keyframes identical, ATE {rec['ate_slam']} vs "
+          f"{ref['ate_slam']} within 1e-3")
 
 
 def _four_card_solvers(mesh, n_dev, n_cams, n_pts):
     """Edge-sharded PGO, observation- and landmark-sharded BA against the
     single-device solvers on a problem of realistic size."""
     import jax
+    import jax.numpy as jnp
     import numpy as np
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from test_slam import make_ba_problem, make_trajectory, relative
     from akaze_jax.geometry import se3_compose, se3_exp
+    from akaze_jax.slam.ba import ba_cost
     from akaze_jax.parallel import (gather_points,
                                     landmark_sharded_bundle_adjust,
                                     make_host_chip_mesh, pad_edges,
@@ -467,25 +507,41 @@ def _four_card_solvers(mesh, n_dev, n_cams, n_pts):
                                     scatter_points, sharded_bundle_adjust,
                                     sharded_optimize_pose_graph)
     from akaze_jax.slam import PoseGraph, bundle_adjust, optimize_pose_graph
-    import jax.numpy as jnp
 
+    # 60 cameras along a path over a cloud spread along it (~25k
+    # observations), 1e-3 (normalized; ~1 px) observation noise, cameras
+    # 1.. and points perturbed: the optimum's cost is far from zero, so the
+    # relative cost bound binds
     rng = np.random.default_rng(5)
-    R, t, X, prob = make_ba_problem(rng, n_cams=n_cams, n_pts=n_pts)
+    R, t, X, prob = make_ba_problem(rng, n_cams=n_cams, n_pts=n_pts,
+                                    noise=1e-3, span=True)
     n_obs = int(np.asarray(prob.w).sum())
     print(f"    BA problem: {n_cams} cameras, {n_pts} points, {n_obs} "
           "observations")
+    check(n_cams >= 50 and n_obs >= 20000,
+          "BA problem of >= 50 cameras and >= 20k observations")
+    dxi = np.asarray(jax.random.normal(jax.random.PRNGKey(2), (n_cams, 6)))
+    dxi = jnp.asarray(dxi * 0.003 * (np.arange(n_cams) > 0)[:, None])
+    R, t = jax.vmap(se3_compose)(R, t, *se3_exp(dxi))
     X0 = X + jax.random.normal(jax.random.PRNGKey(3), X.shape) * 0.04
+    c0 = float(ba_cost(R, t, X0, prob))
     R1, t1, X1, c1 = bundle_adjust(R, t, X0, prob, n_cams=n_cams,
                                    n_pts=n_pts, iters=6, cg_iters=25)
+    print(f"    single-device BA: cost {c0:.6g} -> {float(c1):.6g}")
+    check(float(c1) < 0.5 * c0, "single-device BA lowers the cost")
+
+    def same_ba(name, c, Xs):
+        dX = np.abs(np.asarray(X1) - Xs).max()
+        check(abs(float(c1) - float(c)) <= 1e-3 * float(c1)
+              and np.allclose(np.asarray(X1), Xs, rtol=1e-2, atol=1e-3),
+              f"{name} BA cost {float(c):.7g} vs {float(c1):.7g} (rtol "
+              f"1e-3), points max |dX| {dX:.3g} (rtol 1e-2, atol 1e-3)")
+
     probp = pad_observations(prob, n_dev)
     R2, t2, X2, c2 = sharded_bundle_adjust(R, t, X0, probp, mesh, iters=6,
                                            cg_iters=25)
     print(f"    obs-sharded BA output devices {_devices_of(X2)}")
-    check(abs(float(c1) - float(c2)) <= 1e-3 * abs(float(c1)) + 1e-7
-          and np.allclose(np.asarray(X1), np.asarray(X2), rtol=1e-2,
-                          atol=1e-3),
-          f"observation-sharded BA cost {float(c2):.6g} vs "
-          f"{float(c1):.6g} (rtol 1e-3), points within 1e-2/1e-3")
+    same_ba("observation-sharded", c2, np.asarray(X2))
     mesh_hc = make_host_chip_mesh(num_hosts=1, chips_per_host=n_dev)
     part = partition_landmarks(prob, n_pts, n_dev)
     R3, t3, X3g, c3 = landmark_sharded_bundle_adjust(
@@ -494,36 +550,40 @@ def _four_card_solvers(mesh, n_dev, n_cams, n_pts):
     print(f"    landmark-sharded BA on the (host, chip) = "
           f"{tuple(mesh_hc.devices.shape)} mesh, output devices "
           f"{_devices_of(X3g)}")
-    check(abs(float(c1) - float(c3)) <= 1e-3 * abs(float(c1)) + 1e-7
-          and np.allclose(np.asarray(X1), scatter_points(part, X3g),
-                          rtol=1e-2, atol=1e-3),
-          f"landmark-sharded BA cost {float(c3):.6g} vs {float(c1):.6g}")
+    same_ba("landmark-sharded", c3, scatter_points(part, X3g))
 
+    # PGO over the same number of poses: odometry edges plus a loop edge
+    # every 5 poses, each measurement perturbed (0.01 in se(3)) so that the
+    # optimum's cost is not zero
     n = n_cams
     R_true, t_true = make_trajectory(rng, n)
     ei = list(range(n - 1)) + list(range(0, n - 5, 5))
     ej = list(range(1, n)) + [i + 5 for i in range(0, n - 5, 5)]
     rel = [relative(R_true[i], t_true[i], R_true[j], t_true[j])
            for i, j in zip(ei, ej)]
+    mR, mt = se3_exp(jnp.asarray(
+        rng.standard_normal((len(ei), 6)).astype(np.float32) * 0.01))
+    R_ij, t_ij = jax.vmap(se3_compose)(
+        jnp.stack([r[0] for r in rel]), jnp.stack([r[1] for r in rel]),
+        mR, mt)
     graph = PoseGraph(i=jnp.asarray(ei, jnp.int32),
-                      j=jnp.asarray(ej, jnp.int32),
-                      R_ij=jnp.asarray(np.stack([np.asarray(r[0])
-                                                 for r in rel])),
-                      t_ij=jnp.asarray(np.stack([np.asarray(r[1])
-                                                 for r in rel])),
+                      j=jnp.asarray(ej, jnp.int32), R_ij=R_ij, t_ij=t_ij,
                       weight=jnp.ones(len(ei), jnp.float32))
     noise = rng.standard_normal((n, 6)).astype(np.float32) * 0.03
     noise[0] = 0
     dR, dt = se3_exp(jnp.asarray(noise))
-    P0 = se3_compose(jnp.asarray(R_true), jnp.asarray(t_true), dR, dt)
+    P0 = jax.vmap(se3_compose)(jnp.asarray(R_true), jnp.asarray(t_true),
+                               dR, dt)
     gp = pad_edges(graph, n_dev)
     Rp1, tp1, cp1 = optimize_pose_graph(*P0, gp, iters=6)
     Rp2, tp2, cp2 = sharded_optimize_pose_graph(*P0, gp, mesh, iters=6)
     print(f"    edge-sharded PGO ({len(ei)} edges) output devices "
           f"{_devices_of(Rp2)}")
-    check(np.allclose(np.asarray(Rp1), np.asarray(Rp2), atol=1e-3)
-          and float(cp2) < 1e-4,
-          f"edge-sharded PGO poses within 1e-3, cost {float(cp2):.3g}")
+    dP = max(np.abs(np.asarray(Rp1) - np.asarray(Rp2)).max(),
+             np.abs(np.asarray(tp1) - np.asarray(tp2)).max())
+    check(dP <= 1e-3 and abs(float(cp1) - float(cp2)) <= 1e-3 * float(cp1),
+          f"edge-sharded PGO cost {float(cp2):.7g} vs {float(cp1):.7g} "
+          f"(rtol 1e-3), poses max diff {dP:.3g} <= 1e-3")
 
 
 # --------------------------------------------------------------------------

@@ -96,25 +96,60 @@ def test_kernel_matches_xla_and_golden(name):
         assert acc.sum() >= 1
 
 
+@pytest.mark.parametrize("max_dist", [244, 300, 487])
+def test_kernel_matches_xla_above_243_with_invalid_rows(max_dist):
+    """Thresholds past the zero-row distance of 243: invalid train rows
+    (here the nearest neighbours of some queries) must never be accepted,
+    and the valid runner-up must be, on both routes."""
+    rng = np.random.default_rng(max_dist)
+    n1, n2 = 90, 3 * BT + 7
+    w1, w2 = _words(rng, n1), _words(rng, n2)
+    v1, v2 = np.ones(n1, bool), np.ones(n2, bool)
+    v2[rng.choice(n2 - 20, 60, replace=False)] = False
+    v2[-20:] = False                            # dead tail past the extent
+    for q in range(0, n1, 3):
+        t_bad, t_good = 2 * q, 2 * q + 1
+        w2[t_bad] = _near(w1[q], rng, 1)
+        v2[t_bad] = False
+        w2[t_good] = _near(w1[q], rng, 4 + q % 7)
+        v2[t_good] = True
+    x2 = np.arange(n2, dtype=np.float32)
+    args = (jnp.asarray(w1), jnp.asarray(v1), jnp.asarray(w2),
+            jnp.asarray(v2), jnp.asarray(x2), jnp.asarray(x2), max_dist)
+    ker = match(*args, use_pallas="interpret")
+    xla = match(*args, use_pallas="off")
+    g_idx, g_dist = golden.match(w1, v1, w2, v2, max_dist)
+    for m in (ker, xla):
+        np.testing.assert_array_equal(np.asarray(m.index), g_idx)
+        np.testing.assert_array_equal(np.asarray(m.distance), g_dist)
+    acc = g_idx >= 0
+    assert acc.sum() >= n1 // 3 and v2[g_idx[acc]].all()
+
+
 @pytest.mark.parametrize("counts", [(0, 0), (1, 1), (BQ + 1, BT - 1),
                                     (150, 2 * BT + 1)])
 def test_hamming_top2_running_state(counts):
     """The raw kernel outputs: exact best / second / first arg-best over the
-    live train extent for live query tiles, (1e9, 1e9, -1) past count1."""
+    live train extent for live query tiles, (1e9, 1e9, -1) past count1;
+    invalid train rows score distance + 1e6."""
     rng = np.random.default_rng(7)
     n1, n2 = 150, 2 * BT + 1
     w1, w2 = _words(rng, n1), _words(rng, n2)
     w2[5] = w2[9] = _near(w1[2], rng, 3)        # tie on the best
+    w2[11] = w1[7]                              # an invalid exact match
+    v2 = np.ones(n2, bool)
+    v2[[11, 40, 41]] = False
     c1, c2 = counts
     best, second, idx = hamming_top2(
         _signed_bits(jnp.asarray(w1)), _signed_bits(jnp.asarray(w2)),
-        c1, c2, interpret=True)
+        jnp.asarray(v2), c1, c2, interpret=True)
     best, second, idx = map(np.asarray, (best, second, idx))
     # the kernel scans whole BT-row tiles up to the one holding row c2 - 1
-    # (rows past n2 are zero padding: pseudo-distance 243)
+    # (rows past n2 are padding with a bias of 1e9)
     ext = -(-c2 // BT) * BT
-    d = np.full((n1, ext), 243.0, np.float32)
-    d[:, :min(ext, n2)] = golden.hamming(w1, w2[:ext])
+    d = np.full((n1, ext), 1e9, np.float32)
+    d[:, :min(ext, n2)] = (golden.hamming(w1, w2[:ext])
+                           + np.where(v2[:ext], 0, 1e6))
     for q in range(n1):
         if (q // BQ) * BQ >= c1 or c2 == 0:
             assert (best[q], second[q], idx[q]) == (1e9, 1e9, -1)

@@ -196,9 +196,14 @@ class TestLoopEdgeMeasurement:
         assert np.abs(r_bad).max() > 1e-2
 
 
-def make_ba_problem(rng, n_cams=6, n_pts=80, noise=0.0):
-    """Synthetic BA problem: cameras on an arc looking at a point cloud."""
-    X = rng.uniform([-2, -2, 6], [2, 2, 12], (n_pts, 3)).astype(np.float32)
+def make_ba_problem(rng, n_cams=6, n_pts=80, noise=0.0, span=False):
+    """Synthetic BA problem: cameras on an arc looking at a point cloud.
+
+    ``span``: spread the cloud along the whole camera path, so that every
+    camera sees a window of it (the default cloud sits in front of the
+    first cameras only)."""
+    x_hi = 2 + (0.4 * (n_cams - 1) if span else 0)
+    X = rng.uniform([-2, -2, 6], [x_hi, 2, 12], (n_pts, 3)).astype(np.float32)
     Rs, ts = [], []
     for c in range(n_cams):
         xi = np.zeros(6, np.float32)
